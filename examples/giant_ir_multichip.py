@@ -8,8 +8,8 @@ tail period), cross-checks against the single-device engine, and reports
 the per-chip memory split.
 
 The reference is single-core (`src/fft_convolver.rs`, SURVEY.md §2:
-parallelism ABSENT); this is the TPU-native scale story for the SURVEY §5
-VMEM/HBM-budget scenario (a 60 s IR keeps ~23 MB of partition spectra).
+parallelism ABSENT); this is the scale-out story for the SURVEY §5
+memory-budget scenario (a 60 s IR keeps ~23 MB of partition spectra).
 
 Usage: python examples/giant_ir_multichip.py [--devices 8] [--ir-seconds 2]
 """

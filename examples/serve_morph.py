@@ -5,9 +5,8 @@ The full production stack in one script:
 
     audio callback (odd-size host buffers, never blocks)
       └─ RealTimeDispatcher (native lock-free rings + block assembler)
-           └─ PallasCrossfadeConvolver (ONE fused A/B kernel dispatch
-              per block: shared input ring, both IR tables, sample-
-              accurate raised-cosine crossfader — ops/pallas_crossfade)
+           └─ CrossfadeConvolver (both engines and the sample-accurate
+              raised-cosine crossfader in ONE device program per block)
 
 Mid-stream, `update(ir_b)` triggers an RT-safe morph: the inactive
 engine's tables are rebuilt by a fixed-shape jitted program and the
@@ -18,10 +17,9 @@ mid-fade parks in the single pending-response slot (`:51-64`).
 The reference's analogue is the caller-owned audio callback around
 `CrossfadeConvolver` (`examples/compare_partitioned.rs:30-48`); here the
 callback side is the native SPSC rings and the engine is the fused
-serving kernel.
+crossfade program.
 
-Usage: python -m examples.serve_morph [--blocks N] [--wav out.wav]
-(runs in interpret mode off-TPU, so keep --blocks modest on CPU)
+Usage: python -m examples.serve_morph [--blocks N] [--wav out.wav] [--cpu]
 """
 
 from __future__ import annotations
@@ -39,19 +37,14 @@ if "--cpu" in sys.argv:
 
     jax.config.update("jax_platforms", "cpu")
 
+from fft_convolution_tpu import CrossfadeConvolver, FFTConvolver
 from fft_convolution_tpu.runtime.dispatcher import RealTimeDispatcher
-from fft_convolution_tpu.serving import PallasCrossfadeConvolver
 
 SR = 48_000
 
 
 def main() -> None:
-    import jax
-
-    # interpret-mode kernels off-TPU run seconds per block — size the
-    # demo down there unless --blocks is given explicitly
-    on_tpu = jax.devices()[0].platform == "tpu"
-    n_blocks = 96 if on_tpu else 24
+    n_blocks = 96
     wav_path = None
     argv = sys.argv
     for i, a in enumerate(argv):
@@ -67,10 +60,12 @@ def main() -> None:
     ir_a = (rng.standard_normal(ir_len).astype(np.float32) * decay) * 0.2
     ir_b = -(rng.standard_normal(ir_len).astype(np.float32) * decay) * 0.2
 
-    engine = PallasCrossfadeConvolver(
-        ir_a, block, ir_len, crossfade_samples=4 * block
+    engine = CrossfadeConvolver(
+        FFTConvolver(ir_a, block, ir_len), ir_len, block, 4 * block
     )
-    disp = RealTimeDispatcher(engine)
+    # room for the whole run's output: the demo pulls only what is ready
+    # while it pushes, and drains the rest at the end
+    disp = RealTimeDispatcher(engine, capacity_blocks=n_blocks)
     disp.start()
 
     # the "audio callback": odd-size pushes (441 = 10 ms at 44.1 kHz), a
@@ -95,9 +90,7 @@ def main() -> None:
         got = disp.pull(min(disp.available(), n))
         if len(got):
             out.append(got)
-    # interpret-mode engines (off-TPU) can take minutes for the first
-    # compiled kernel call; give the drain room there
-    disp.drain(timeout=300.0 if engine._interpret else 10.0)
+    disp.drain(timeout=60.0)
     out.append(disp.pull(disp.available()))
     disp.stop()
     wall = time.perf_counter() - t0

@@ -1,11 +1,11 @@
-"""fft_convolution_tpu — TPU-native partitioned FFT convolution framework.
+"""fft_convolution_tpu — partitioned FFT convolution framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 Sin-tel/fft-convolution Rust crate: real-time-safe uniform and non-uniform
 (two-stage) partitioned convolution with artifact-free impulse-response
-switching, engineered TPU-first — pure state-transition functions over
-pytree state, ``lax.scan`` streaming, ``vmap`` channel/IR batching, and
-``shard_map`` scale-out over device meshes.
+switching — pure state-transition functions over pytree state,
+``lax.scan`` streaming, ``vmap`` channel/IR batching, and ``shard_map``
+scale-out over device meshes.
 
 Public surface (mirrors ``trait Convolution``, reference ``src/lib.rs:5-14``):
 
@@ -22,9 +22,6 @@ __all__ = [
     "FFTConvolver",
     "TwoStageFFTConvolver",
     "CrossfadeConvolver",
-    "PallasFFTConvolver",
-    "PallasTwoStageConvolver",
-    "PallasCrossfadeConvolver",
     "ShardedFFTConvolver",
     "ShardedTwoStageConvolver",
     "ReverbFarm",
@@ -39,15 +36,6 @@ def __getattr__(name):
     if name == "CrossfadeConvolver":
         from .api_crossfade import CrossfadeConvolver
         return CrossfadeConvolver
-    if name == "PallasFFTConvolver":
-        from .serving import PallasFFTConvolver
-        return PallasFFTConvolver
-    if name == "PallasTwoStageConvolver":
-        from .serving import PallasTwoStageConvolver
-        return PallasTwoStageConvolver
-    if name == "PallasCrossfadeConvolver":
-        from .serving import PallasCrossfadeConvolver
-        return PallasCrossfadeConvolver
     if name == "ShardedFFTConvolver":
         from .parallel.partition import ShardedFFTConvolver
         return ShardedFFTConvolver

@@ -1,4 +1,4 @@
-"""Public stateful API — the TPU counterpart of the reference's
+"""Public stateful API — the JAX counterpart of the reference's
 ``Convolution`` trait (``src/lib.rs:5-14``).
 
 The contract is identical:
@@ -164,11 +164,6 @@ class FFTConvolver:
         kh = self._khat_cache.get(m)
         if kh is None:
             kh = _jit_stream_khat(self.cfg)(self.state, t)
-            # consumed-layout pin: see utils.layouts (one relayout at
-            # build instead of per call)
-            from .utils.layouts import pin_m_minor
-
-            kh = pin_m_minor(kh)
             self._khat_cache[m] = kh
         return kh
 

@@ -83,6 +83,12 @@ class CrossfadeConvolver:
         n = int(np.asarray(response).shape[0])
         return cls(convolver, n, max_block_size, n)
 
+    @property
+    def cfg(self):
+        """The wrapped engines' static config (both engines share it) —
+        what block-driven hosts such as ``RealTimeDispatcher`` read."""
+        return self.convolver_a.cfg
+
     def is_crossfading(self) -> bool:
         """(``src/crossfade_convolver.rs:85-92``)"""
         return bool(self.cf_state.approaching)

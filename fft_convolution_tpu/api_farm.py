@@ -4,12 +4,9 @@ wrapper over :mod:`parallel.farm2`.
 The reference crate is single-voice (``src/fft_convolver.rs`` is
 single-threaded; its only nod to scale is the "background thread" comment
 at ``:478``); the farm is this framework's own scale story: V two-stage
-voices with DISTINCT long IRs batched on one chip — fused head/tail0
-streams, the fused-voice phased big tail served by the single-pass Pallas
-step kernel, head-kernel meta-DFT cached per IR epoch — ~8,100-8,400
-realtime 60 s voices per v5e chip at f32, ~9,000 with the plane-packed
-bf16 tail + bf16 head transforms (which also fits ~1.8x the voices;
-benchmarks/RESULTS.md r04).
+voices with DISTINCT long IRs batched on one device — fused head/tail0
+streams, the fused-voice phased big tail, head-kernel meta-DFT cached per
+IR epoch; the plane-packed bf16 tail fits roughly twice the voices.
 
 Contract mirrors the per-voice :class:`TwoStageFFTConvolver` where it
 can: ``process`` streams audio, ``update`` is the batched RT-safe IR swap
@@ -32,11 +29,10 @@ import numpy as np
 from .models import two_stage, uniform
 from .ops.fft import next_power_of_two
 from .parallel import farm2
-from .utils.layouts import pin_m_minor
 
 
 class ReverbFarm:
-    """V-voice two-stage convolution farm on one chip (or a ``('dp',)``
+    """V-voice two-stage convolution farm on one device (or a ``('dp',)``
     mesh via ``mesh=``).
 
     Parameters
@@ -47,37 +43,29 @@ class ReverbFarm:
         length up to this.
     tail_dtype : ``jnp.float32`` (default) or ``jnp.bfloat16`` — bf16
         stores the big tail's IR table and spectra ring at half the
-        memory (~1.4x voices/chip) AND ~1.25x the throughput, with a
-        ~1e-3 relative tolerance on the tail contribution.  Storage is
-        plane-packed uint32 words (ops/packing.py).
-    tail_mac : "auto" (Pallas step kernel on TPU, jnp core elsewhere),
-        "pallas", "pallas_interpret", or "jnp".
+        memory, with a ~1e-3 relative tolerance on the tail
+        contribution.  Storage is plane-packed uint32 words
+        (ops/packing.py).
     tail_dft_precision : precision spec for the big tail's forward /
-        inverse block DFTs — "auto" (default) resolves to ``"highest"``:
-        on the headline V=128/60 s shape the ``"bf16"`` mode (bf16
-        matmul operands, ops/fft._mm_mode) MEASURED ~6% slower despite
-        6x fewer MXU passes — those DFT stages are memory-bound and the
-        extra operand casts cost more than the passes save
-        (benchmarks/exp_taildft, 2026-08-18: 24.7 vs 23.3 ms).  The knob
-        stays for other shapes; any explicit
-        :data:`parallel.farm2._PRECISIONS` key is accepted.
+        inverse block DFTs — "auto" (default) resolves to ``"highest"``;
+        any explicit :data:`parallel.farm2._PRECISIONS` key is accepted.
     dft_precision : precision spec for the HEAD stages (block DFTs,
         combined-kernel meta-DFTs, cached khat) — "auto" resolves to
-        "highest": the early response is the engine's parity story.
-        "bf16" is the throughput tier pairing with
-        ``tail_dtype=bfloat16`` (~6e-3 relative on the head+tail0
-        contribution, benchmarks/exp_headprec).  CHANGED in r04: packed
-        farms' "auto" now resolves to "bf16" (was "highest") — +26%
-        rt voices; pass dft_precision="highest" explicitly to keep
+        "highest" for f32 farms (the early response is the engine's
+        parity story) and to "bf16" for packed bf16 farms, the
+        throughput tier (~6e-3 relative on the head+tail0
+        contribution); pass dft_precision="highest" explicitly to keep
         parity-exact heads over a packed tail.
     mesh : optional ``jax.sharding.Mesh`` with a ``"dp"`` axis — the
-        state shards over voices (``V`` must divide by the mesh size).
-        Composes with the Pallas tail kernel: the stream then runs under
-        ``shard_map`` (:func:`parallel.farm2.farm2_stream_sharded`), each
-        device stepping its local voice shard with zero collectives in
-        the audio path.
-    hbm_budget_bytes : eager capacity guard — ``"auto"`` (15.5e9 on a TPU
-        backend, disabled elsewhere), a byte budget, or ``None``.  A farm
+        state shards over voices (``V`` must divide by the mesh size) and
+        the stream runs under ``shard_map``
+        (:func:`parallel.farm2.farm2_stream_sharded`), each device
+        stepping its local voice shard with zero collectives in the
+        audio path.
+    hbm_budget_bytes : eager capacity guard — ``"auto"``
+        (:func:`parallel.farm2.device_budget_bytes`: the device's
+        allocatable memory less headroom, disabled where the device
+        reports no memory statistics), a byte budget, or ``None``.  A farm
         whose estimated footprint (:func:`parallel.farm2.farm2_bytes_per_voice`
         x V) exceeds it raises a ``ValueError`` naming the estimate and
         the fitting voice count at construction, instead of an opaque
@@ -86,16 +74,12 @@ class ReverbFarm:
     """
 
     # update_voices slab cap: subsets larger than this are applied as
-    # consecutive <=8-voice chunks.  Measured at V=128/60 s (r05
-    # exp_update v2 logs): batched K=32 f32 over-allocates HBM at compile
-    # time next to the live state, while K=8 compiles and runs in both
-    # dtypes (f32 4.42 ms, bf16 3.41 ms) — and 4 chunked K=8 calls beat
-    # the one batched K=32 program even where the latter compiles
-    # (bf16: 13.6 vs 25.1 ms).
+    # consecutive <=8-voice chunks, which bounds the update's transient
+    # memory next to the live multi-GB state
     update_voices_chunk = 8
 
     def __init__(self, irs, block_size: int, max_response_length: int,
-                 *, tail_dtype=jnp.float32, tail_mac: str = "auto",
+                 *, tail_dtype=jnp.float32,
                  tail_dft_precision: str = "auto",
                  dft_precision: str = "auto", mesh=None,
                  hbm_budget_bytes="auto"):
@@ -109,10 +93,6 @@ class ReverbFarm:
             irs, block_size, max_response_length, tail_dtype=tail_dtype,
             hbm_budget_bytes=hbm_budget_bytes,
         )
-        if tail_mac == "auto":
-            tail_mac = (
-                "pallas" if jax.devices()[0].platform == "tpu" else "jnp"
-            )
         if tail_dft_precision == "auto":
             tail_dft_precision = "highest"
         if tail_dft_precision not in farm2._PRECISIONS:
@@ -121,16 +101,8 @@ class ReverbFarm:
                 f"{sorted(farm2._PRECISIONS)} (or 'auto')"
             )
         self._tail_dft_precision = tail_dft_precision
-        # head-stage transform precision (forward/inverse block DFTs, the
-        # combined-kernel meta-DFTs, and the cached khat): "auto" ->
-        # "highest" for f32 farms (the early response is the engine's
-        # parity story) and "bf16" for plane-packed bf16 farms — that mode
-        # IS the opt-in throughput tier, and bf16 head transforms measured
-        # heads 8.2 -> 5.1 ms / full call 24.5 -> 19.4 ms (+26% rt voices)
-        # at V=128 in one window (benchmarks/results/r04/exp_headprec.log)
-        # at ~6e-3 relative on the head+tail0 contribution.  Pass
-        # dft_precision="highest" for parity-exact heads over a packed
-        # tail.
+        # head-stage transform precision: the plane-packed bf16 farm IS
+        # the opt-in throughput tier, so its heads default to bf16 too
         if dft_precision == "auto":
             dft_precision = ("bf16" if tail_dtype == jnp.bfloat16
                              else "highest")
@@ -148,7 +120,6 @@ class ReverbFarm:
                 f"({mesh.size}) — the fused V*B tail axis shards "
                 "voice-chunked"
             )
-        self._tail_mac = tail_mac
         self.voices = irs.shape[0]
         self.block_size = self.cfg.head_block
         self.max_response_length = max_response_length
@@ -158,34 +129,28 @@ class ReverbFarm:
         self.state = state
         # per-call block ceiling: the phased tail core consumes whole
         # periods and supports a bounded number per call (the correction
-        # indices / Pallas table-head DMA assume it) — enforced eagerly in
-        # process() so users get a ValueError, not an in-trace assert
+        # indices assume it) — enforced eagerly in process() so users get
+        # a ValueError, not an in-trace assert
         if self.cfg.tail is not None:
             q_max = min(self.cfg.tail.seg_count, uniform.CORR_EXTRA_ROWS)
-            if tail_mac in ("pallas", "pallas_interpret"):
-                # both f32 and plane-packed bf16 storage are 32-bit wide:
-                # the table-head DMA covers 8 rows either way
-                q_max = min(q_max, 8)
             self.max_blocks_per_call = q_max * self.cfg.period
         else:
             self.max_blocks_per_call = None
         # donated state: the stream's in-place ring-row writes are the
         # point of the roll-free phased core — without donation every call
         # copies the multi-GB tail ring (snapshot/restore/clone already
-        # copy, so no live aliases remain).  Under a mesh the Pallas tail
-        # kernel must run inside shard_map (it has no GSPMD partitioning
-        # rule — farm2_stream_sharded's docstring); the jnp core shards
-        # cleanly under plain GSPMD.
-        if mesh is not None and tail_mac != "jnp":
+        # copy, so no live aliases remain).  Under a mesh the stream runs
+        # inside shard_map, where it compiles with no collective
+        # (farm2_stream_sharded's docstring).
+        if mesh is not None:
             stream_fn = functools.partial(
                 farm2.farm2_stream_sharded, mesh, self.cfg,
-                tail_mac=tail_mac,
                 dft_precision=dft_precision,
                 tail_dft_precision=tail_dft_precision,
             )
         else:
             stream_fn = functools.partial(
-                farm2.farm2_stream, self.cfg, tail_mac=tail_mac,
+                farm2.farm2_stream, self.cfg,
                 dft_precision=dft_precision,
                 tail_dft_precision=tail_dft_precision,
             )
@@ -229,10 +194,6 @@ class ReverbFarm:
         """Stream ``[T, V, block_size]`` -> ``[T, V, block_size]``;
         ``T`` must be a positive multiple of ``period`` and at most
         ``max_blocks_per_call`` (the phased tail core's per-call bound —
-        longer calls amortize the Pallas tail's per-call table-window DMA:
-        with f32 tail storage, 8-period calls measured ~9% more aggregate
-        throughput than 2-period calls at V=128; packed bf16 prefers
-        2-period calls (``benchmarks/exp_qsweep``) —
         split longer streams into consecutive calls)."""
         blocks = jnp.asarray(blocks, jnp.float32)
         t = blocks.shape[0]
@@ -253,8 +214,8 @@ class ReverbFarm:
             raise ValueError(
                 f"T={t} exceeds the farm's per-call ceiling of "
                 f"{self.max_blocks_per_call} blocks "
-                f"({self.max_blocks_per_call // self.period} tail periods "
-                f"with tail_mac={self._tail_mac!r}) — split the stream "
+                f"({self.max_blocks_per_call // self.period} tail periods) "
+                "— split the stream "
                 "into consecutive process() calls"
             )
         if self.cfg.tail is not None:
@@ -262,10 +223,6 @@ class ReverbFarm:
             khat = self._khat_cache.get(m)
             if khat is None:
                 khat = self._khat_fn(self.state, t)
-                # consumed-layout pin (sharding-preserving): the default-
-                # layout khat param relayouts ~2.2% x2 of the farm stream
-                # per call — see utils.layouts
-                khat = pin_m_minor(khat)
                 self._khat_cache[m] = khat
                 self._khat_t_for_m[m] = t
         else:
@@ -337,11 +294,8 @@ class ReverbFarm:
             self.update(full)
             return
         if idx.size > self.update_voices_chunk:
-            # split into <=chunk slabs of DISTINCT voices: at V=128/60 s the
-            # batched K=32 f32 program over-allocates HBM at COMPILE time
-            # (args 11.2 G + 3.2 G update temps — r05 exp_update v2 logs),
-            # and even where batched K=32 compiles (bf16, 25.1 ms) four K=8
-            # calls are faster (4 x 3.4 = 13.6 ms).  Chunking also caps the
+            # split into <=chunk slabs of DISTINCT voices: bounds the
+            # update's transients next to the live state, and caps the
             # per-K jit cache at {1, 2, 4, 8}.
             for s in range(0, int(idx.size), self.update_voices_chunk):
                 e = min(s + self.update_voices_chunk, int(idx.size))
@@ -350,9 +304,7 @@ class ReverbFarm:
         # bucket K to the next power of two by REPEATING the last entry —
         # scatter/slab writes of identical rows are idempotent — so the
         # per-shape jit cache holds at most log2(chunk) executables instead
-        # of one multi-GB-aliased program per distinct subset size (a second
-        # traced K next to the live state OOM'd a V=128 chip in
-        # benchmarks/exp_update)
+        # of one multi-GB-aliased program per distinct subset size
         k_pad = 1 << (int(idx.size) - 1).bit_length()
         pad = k_pad - idx.size
         idx = np.concatenate([idx, np.repeat(idx[-1:], pad)])
@@ -372,11 +324,7 @@ class ReverbFarm:
                 if t is None:
                     continue
                 sre, sim = self._khat_voices_jit(self.state, t, vidx)
-                # re-pin: the scatter's output reverts to default layout,
-                # and a mixed-layout cache would retrace the stream
-                patched[m] = pin_m_minor(
-                    (kre.at[vidx].set(sre), kim.at[vidx].set(sim))
-                )
+                patched[m] = (kre.at[vidx].set(sre), kim.at[vidx].set(sim))
             self._khat_cache = patched
 
     def reset(self) -> None:

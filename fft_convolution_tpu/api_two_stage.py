@@ -11,7 +11,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from .models import two_stage, uniform
-from .utils.layouts import pin_m_minor
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,7 +85,7 @@ class TwoStageFFTConvolver:
     (assert at ``src/fft_convolver.rs:414``).  This wrapper accepts that
     surface and, as a documented extension, also accepts longer block-aligned
     streams (processed head-block by head-block through the scanned fast
-    path) — the natural TPU streaming call.
+    path) — the natural device streaming call.
     """
 
     def __init__(self, response, block_size: int, max_response_length: int):
@@ -252,10 +251,6 @@ class TwoStageFFTConvolver:
             khats = _jit_stream_khats(self.cfg)(
                 self.state, t, True if use_chrono else None
             )
-            # pin the planes into the stream's consumed (m-minor) layout
-            # once at build — a default-layout khat param gets relayouted
-            # by EVERY call (exp_khat_layout: -33% on 2-period calls)
-            khats = pin_m_minor(khats)
             self._khat_cache[khat_key] = khats
         if not use_chrono:
             self._exit_chrono()
@@ -315,7 +310,7 @@ class TwoStageFFTConvolver:
         self._tail_chrono = None
         self._tail_pos = 0
         if len(snap) == 4:
-            # pre-r05 snapshot without the clean shadow: recompute it from
+            # older snapshot without the clean shadow: recompute it from
             # the snapshot's own ring scalars (cold path, 3 scalar fetches)
             st = snap[0]
             full = self.cfg.tail0 is not None and self.cfg.head == self.cfg.tail0

@@ -1,12 +1,12 @@
 """Crossfader: sample-accurate equal-power fade state machine.
 
-TPU-native re-design of ``Crossfader`` + mixers
+JAX re-design of ``Crossfader`` + mixers
 (``src/crossfade_convolver.rs:126-279``).  The reference advances the state
 machine one sample at a time; a per-sample Python/device loop would be the
-worst possible TPU program, so the whole block is evaluated in closed form:
-given the state at block start, every sample's phase (hold / ramp / snapped /
-reached) and mix value are pure functions of the sample index, computed as
-one vectorized ``where`` cascade on the VPU.
+worst possible device program, so the whole block is evaluated in closed
+form: given the state at block start, every sample's phase (hold / ramp /
+snapped / reached) and mix value are pure functions of the sample index,
+computed as one vectorized ``where`` cascade.
 
 Semantics reproduced exactly (quirks included):
 

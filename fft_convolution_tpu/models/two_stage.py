@@ -1,6 +1,6 @@
 """Two-stage (non-uniform partition) FFT convolution.
 
-TPU-native re-design of ``TwoStageFFTConvolver``
+JAX re-design of ``TwoStageFFTConvolver``
 (``src/fft_convolver.rs:323-526``): a small-block *head* convolver gives low
 latency while two large-block *tail* stages give efficiency, with the tail
 outputs precomputed one period ahead (double-buffered) so the per-block cost
@@ -618,11 +618,8 @@ def _fused_small_streams(cfg, st_h, st_t0, blocks, precalc0, khats):
 # doubled-table window PER BLOCK (~2 x N x fft x 4 bytes each step, so
 # scan bytes ~ q * N), while the conv core's meta-DFT passes each cost
 # ~m = next_power_of_two(N - 1 + q) rows and are nearly flat in q.  The
-# conv core wins when q * N >= RATIO * m — measured (same-window A/Bs,
-# benchmarks/results/r04/exp_config3_ab.log, with the direct small-meta
-# path): the 30 s config's tail (N=86, m=128) flips at q=8 (ratio 5.4,
-# conv 0.655 vs scan 0.758 ms) but not q=4 (ratio 2.7, conv 2x slower);
-# the flagship tail (N=57, q=62, m=128: ratio 28) was a 2.2x stream win.
+# conv core is taken when q * N >= RATIO * m (a crossover not yet
+# re-measured on the GPU).
 TAIL_CONV_RATIO = 5
 
 
@@ -732,7 +729,7 @@ def process_stream_aligned(cfg: TwoStageConfig, state: TwoStageState,
                            tail_chrono=None,
                            assume_clean_small: bool = False,
                            ) -> Tuple[TwoStageState, jnp.ndarray]:
-    """Period-aligned batched streaming — the TPU-native throughput path.
+    """Period-aligned batched streaming — the device throughput path.
 
     Requires ``state.tail_fill == 0`` and ``T % period == 0`` (the host
     wrapper checks).  Exploits the structure the sequential schedule hides:
@@ -748,7 +745,7 @@ def process_stream_aligned(cfg: TwoStageConfig, state: TwoStageState,
     period's tail0 output, and the main tail's swap-then-process means its
     contribution surfaces two periods after its input (consistent with its
     IR offset of ``2 * tail_block``).  Each stage is a batched uniform
-    stream (MXU-batched DFTs), so nothing sequential remains but the tiny
+    stream (batched DFTs), so nothing sequential remains but the tiny
     per-block MAC recurrences inside each stage.
 
     Carried state reproduces the sequential double-buffer contents exactly,
@@ -811,11 +808,10 @@ def process_stream_aligned(cfg: TwoStageConfig, state: TwoStageState,
         # init — init pads the IR to every stage's capacity — and no
         # shrinking update since), so the safety cond AND the entire
         # separate-streams fallback subtree are elided at trace time.  The
-        # cond is a fusion barrier and a sync point: short aligned calls are
-        # OP-COUNT-bound (~450 flat-profile HLO ops at ~1 µs of
-        # issue+dependency latency each — results/r05/exp_cost_config3_8p),
-        # and the cond's boundary tuple copies + the compiled-but-untaken
-        # branch are pure overhead when the predicate is statically known.
+        # cond is a fusion barrier and a sync point on the op-count-bound
+        # short aligned call, and its boundary tuple copies + the
+        # compiled-but-untaken branch are pure overhead when the predicate
+        # is statically known.
         head_state, tail0_state, y, new_precalc0, new_output0 = (
             _fused_small_streams(cfg, state.head, state.tail0, blocks,
                                  state.tail_precalc0, khats))

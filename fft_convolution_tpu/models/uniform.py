@@ -1,6 +1,6 @@
 """Uniform partitioned FFT convolution (frequency-delay line, overlap-add).
 
-TPU-native re-design of the reference ``FFTConvolver``
+JAX re-design of the reference ``FFTConvolver``
 (``src/fft_convolver.rs:86-307``).  The Rust engine mutates ring buffers in
 place; here the engine is a pure state-transition function
 
@@ -297,7 +297,7 @@ def _stream_ring_scan(cfg: UniformConfig, state: UniformState,
 
     With a full ring (``active == seg_count``) the per-step partition
     pairing uses a contiguous window of a doubled IR table instead of a row
-    gather (TPU gathers are slow): stored row j pairs
+    gather: stored row j pairs
     ``ir[(j - current) mod N]`` = ``ir2[N - current + j]``.
     """
     n = cfg.seg_count
@@ -383,7 +383,7 @@ def _stream_conv(cfg: UniformConfig, state: UniformState,
     ``conv[t] = sum_i IR[i] (*) X[t-i]`` is a causal convolution along the
     block axis, computed with a second DFT along that axis
     (``ops.fft.causal_conv_time``) over the extended spectrum sequence
-    (ring history ++ new spectra) — zero sequential steps, all MXU matmuls.
+    (ring history ++ new spectra) — zero sequential steps, all matmuls.
 
     Precondition: ``current < active_segs`` (a clean ring).  The caller
     guards with :func:`_stream_ring_scan` otherwise.
@@ -397,7 +397,7 @@ def _stream_conv(cfg: UniformConfig, state: UniformState,
 
     # chronological history: E[k] holds X[-(N-1-k)] at ring slot
     # (current + delay) % active  [delays >= active are kernel-masked].
-    # Arbitrary row gathers are slow on TPU; with a FULL ring (active == N,
+    # Instead of an arbitrary row gather: with a FULL ring (active == N,
     # the overwhelmingly common case) the history is one contiguous window
     # of the doubled ring, reversed — a dynamic slice instead of a gather.
     def hist_slice():
@@ -434,8 +434,8 @@ def _stream_conv(cfg: UniformConfig, state: UniformState,
         ext = specs
 
     # activity-masked kernel; the MAC over the whole stream runs as a
-    # second DFT along the block axis (ops.fft.causal_conv_time) — all MXU
-    # matmuls, vs ~100 GFLOPS for the grouped-conv HLO lowering.
+    # second DFT along the block axis (ops.fft.causal_conv_time) — all
+    # matmuls instead of a grouped convolution.
     # The mask materializes a full copy of the IR table (the flagship
     # program's single biggest op by HLO cost estimate), so the common
     # full-ring case skips it behind a scalar cond.  A precomputed
@@ -467,8 +467,7 @@ def _stream_conv(cfg: UniformConfig, state: UniformState,
         # engine defines it by (conv = pre + current (*) ir[0],
         # src/fft_convolver.rs:256-261):  pre = conv[T-1] - X[T-1] (*) ir[0]
         # — O(B) instead of the masked MAC's O(N*B) re-read of the whole
-        # IR table + window (the corr cores use the same identity; r04
-        # exp_tailglue measured the rebuild glue at 64% of the tail call)
+        # IR table + window (the corr cores use the same identity)
         byd = jnp.flip(jax.lax.slice_in_dim(ext, t - 1, t - 1 + n, axis=0), axis=0)
         segments = jnp.roll(byd, current_f + 1, axis=0)
         pre = convs[-1] - pmul(specs[-1], state.segments_ir[0])
@@ -764,7 +763,7 @@ def stream_conv_farm(cfg: UniformConfig, state: UniformState,
         ext = specs
 
     # the MAC over the whole stream is a second DFT along the block axis
-    # (ops.fft.causal_conv_time) — all MXU matmuls, batched over voices;
+    # (ops.fft.causal_conv_time) — all matmuls, batched over voices;
     # kern_hat (parallel.farm.farm_khat) hoists the kernel-side meta-DFT
     convs = causal_conv_time(ext, state.segments_ir, t,
                              kern_hat=kern_hat)              # [V, T, 2, B]
@@ -795,9 +794,8 @@ def stream_conv_farm(cfg: UniformConfig, state: UniformState,
 #
 # The time-DFT conv core on the standard decrementing ring pays, per call,
 # a doubled-ring concat + history slice + flip + ext concat on the way IN
-# and a delay-ordered flip + roll rebuild on the way OUT — measured at
-# 52-70 % of the single-voice two-stage tail call (r04 exp_tailglue; the
-# MAC itself is nearly flat in call length).  The ring exists to serve the
+# and a delay-ordered flip + roll rebuild on the way OUT — glue around a
+# MAC that is nearly flat in call length.  The ring exists to serve the
 # SEQUENTIAL schedule; a batched stream only ever needs the last N-1
 # spectra OLDEST-FIRST — exactly a chronological buffer.
 #
@@ -1054,7 +1052,7 @@ def choose_stream_core(cfg: UniformConfig, t: int, *,
 def process_stream(cfg: UniformConfig, state: UniformState,
                    blocks: jnp.ndarray,
                    kern_hat=None) -> Tuple[UniformState, jnp.ndarray]:
-    """Batched streaming over ``[T, block_size]`` — the TPU-native
+    """Batched streaming over ``[T, block_size]`` — the device-side
     replacement for the caller's audio-callback loop
     (``examples/compare_partitioned.rs:30-48``).
 
@@ -1063,7 +1061,7 @@ def process_stream(cfg: UniformConfig, state: UniformState,
     the stream MAC's matmul work) out of the call.  Recompute after
     ``update``; ignored by the ring-scan fallback and huge-block paths.
 
-    A naive scan of :func:`process_block` leaves the MXU idle: every scan
+    A naive scan of :func:`process_block` leaves the device idle: every scan
     iteration dispatches two small DFT matmuls whose latency dominates.
     Here nothing sequential remains at all:
 

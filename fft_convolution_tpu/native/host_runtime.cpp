@@ -1,6 +1,6 @@
 // Host-side real-time runtime for fft_convolution_tpu.
 //
-// The TPU executes the spectral math; this C++ layer owns the host side of
+// The device executes the spectral math; this C++ layer owns the host side of
 // the real-time path — the role the reference's allocation-free Rust
 // while-loop plays inside process() (src/fft_convolver.rs:222-294) and the
 // audio-callback glue its examples assume (examples/compare_partitioned.rs:30-48):

@@ -1,5 +1,5 @@
 """FFT + DSP primitives (the reference's L0 layer,
-``src/fft_convolver.rs:8-84``), plus the Pallas TPU kernels.
+``src/fft_convolver.rs:8-84``).
 
 Public L0 surface (mirroring the reference's ``pub`` items):
 ``Fft``, ``complex_size``, ``copy_and_pad`` (src/fft_convolver.rs:29-60),

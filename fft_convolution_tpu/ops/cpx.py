@@ -1,10 +1,10 @@
 """Packed halfcomplex arithmetic over real ``[..., 2, B]`` arrays.
 
-The TPU backend has no complex dtype, so spectra are stored as stacked
+The engines keep no complex dtype (ops/fft.py), so spectra are stored as stacked
 (re, im) float32 planes with the Nyquist bin packed into ``im[..., 0]``
 (see ``ops/fft.py``).  The product of two such spectra is the ordinary
 complex product on bins 1..B-1, and the *real* products DC*DC and
-Nyquist*Nyquist on the packed lane 0 — one masked select on the VPU.
+Nyquist*Nyquist on the packed lane 0 — one masked select.
 
 This module is the counterpart of ``complex_multiply_accumulate``
 (``src/fft_convolver.rs:62-74``), decomposed into real ops.
@@ -42,7 +42,7 @@ def pmul_sum(a: jnp.ndarray, b: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndarray:
     spectral MAC: ``sum_i mask[i] * a[i] (*) b[i]``.
 
     ``a``, ``b``: [..., N, 2, B]; ``mask``: [N] float or bool.  Returns
-    [..., 2, B].  Decomposed so XLA fuses the whole reduction into one VPU
+    [..., 2, B].  Decomposed so XLA fuses the whole reduction into one elementwise
     pass; leading axes (e.g. farm voices) batch transparently.
     """
     m = mask.astype(a.dtype)[:, None]

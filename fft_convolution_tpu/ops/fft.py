@@ -1,25 +1,29 @@
-"""Real-DFT engine and DSP helpers — TPU-native counterpart of the
+"""Real-DFT engine and DSP helpers — the JAX counterpart of the
 reference's L0 layer (``src/fft_convolver.rs:8-84``).
 
 The reference wraps ``realfft``/``rustfft`` CPU plans (``src/fft_convolver.rs:8-50``).
-On this TPU backend the FFT HLO and the complex dtype are both unavailable,
-and they would be the wrong tool anyway: the MXU is a 128x128 systolic array
-that does dense matmuls at speed-of-light, so the TPU-native transform is a
-**DFT-as-matmul**:
+Here the transform is a **DFT-as-matmul** over real arrays (the design
+was first built for an accelerator with no FFT op and no complex dtype;
+whether ``jnp.fft`` on complex64 serves better on the GPU is an open
+measurement):
 
 * small transforms (n <= ``_DIRECT_MAX``) are a single real matmul against a
   precomputed ``[n, 2B]`` basis;
 * large transforms use Bailey's 4-step factorization ``n = n1 * n2``: an
-  ``n2``-point DFT stage (matmul), a twiddle multiply (VPU), and an
-  ``n1``-point DFT stage (matmul) — every stage is MXU-shaped.
+  ``n2``-point DFT stage (matmul), a twiddle multiply (elementwise), and an
+  ``n1``-point DFT stage (matmul).
+
+Every matmul passes ``precision=HIGHEST`` unless a caller opts into the
+bf16 tier: a float32 matmul at default precision may run in TF32, which
+keeps ~3 decimal digits — far outside the 1e-5 parity contract.
 
 Spectra use the classic *halfcomplex packing*: a real transform of length
 ``n = 2B`` has ``B+1`` bins, of which bins 0 and B (DC, Nyquist) are purely
 real.  We store ``re[0..B-1]`` and ``im[0..B-1]`` with ``im[0]`` holding the
 Nyquist real value, giving a ``[..., 2, B]`` array whose last dim is the
-block size — a multiple of the TPU's 128-lane width with **zero padding
-waste** (vs. the B+1 = 129-bin layout that would force padding to 256).
-All complex arithmetic is decomposed into real VPU ops in ``cpx.py``.
+block size — a power of two with **zero padding waste** (vs. the
+B+1 = 129-bin layout that would force padding to 256).  All complex
+arithmetic is decomposed into real elementwise ops in ``cpx.py``.
 
 Normalization matches the reference: unnormalized forward
 (``Fft::forward``, ``src/fft_convolver.rs:36-39``), ``1/n`` on the inverse
@@ -46,8 +50,8 @@ def _mm_mode(precision):
     ``precision`` is a ``jax.lax.Precision`` (operands stay f32;
     HIGHEST is the parity-exact default) or the string ``"bf16"``:
     operands, DFT matrices, and stage intermediates are cast to
-    bfloat16 — ONE MXU pass per matmul instead of HIGHEST's six and
-    half the inter-stage traffic, at ~1e-3 relative accuracy.  That is
+    bfloat16 — half the operand and inter-stage traffic, at ~1e-3
+    relative accuracy.  That is
     the same tier as the farm's plane-packed bf16 tail storage
     (``ops/packing.py``), its intended consumer: an opt-in throughput
     mode for reverb-tail content, never the default (the 1e-6 parity
@@ -173,7 +177,7 @@ def _dft4_real(x: jnp.ndarray, n: int, precision=jax.lax.Precision.HIGHEST) -> t
     matmul).
 
     Returns full-spectrum (re, im), each [..., n].  Stage 1 exploits the
-    real input (2 matmuls instead of 4); everything lands on the MXU.
+    real input (2 matmuls instead of 4).
     """
     n1, n2 = _split_factors(n)
     hp, od = _mm_mode(precision)
@@ -221,9 +225,7 @@ def _cidft4_real(re: jnp.ndarray, im: jnp.ndarray, m: int,
     4-step DFT along the LAST axis: ``out[t] = Re sum_k (re+i im)[k]
     e^{+2i pi k t / m}``.  Final stage computes only the real part
     (2 matmuls).  ``scale`` folds a normalization into the final-stage
-    matrices (host-side), so callers avoid a full-array scaling pass —
-    the ``out / n`` division was a measured ~2% whole-array copy in the
-    farm's compiled stream (benchmarks/exp_cost)."""
+    matrices (host-side), so callers avoid a full-array scaling pass."""
     batch = re.shape[:-1]
     n1, n2 = _split_factors(m)
     hp, od = _mm_mode(precision)
@@ -267,11 +269,9 @@ def _irdft_4step(p: jnp.ndarray, n: int, precision=jax.lax.Precision.HIGHEST) ->
         w_0 = 1,  w_1[k] = e^{+i pi k / b}
 
     i.e. two half-length real-part inverse 4-steps and a lane interleave.
-    The previous formulation materialized the length-``n`` Hermitian
-    extension with two LANE-AXIS REVERSES — measured ~4.4 ms of
-    pad/reverse fusions per farm tail call at 128 voices (lane reversals
-    are full relayouts on TPU); this one has none, and does ~30% fewer
-    matmul FLOPs besides (two b-point stages vs one 2b-point)."""
+    Materializing the length-``n`` Hermitian extension would take two
+    last-axis reverses; this form has none, and does ~30% fewer matmul
+    FLOPs besides (two b-point stages vs one 2b-point)."""
     return _irdft_4step_pair(p[..., 0, :], p[..., 1, :], n, precision)
 
 
@@ -279,14 +279,14 @@ def _irdft_4step_pair(p_re: jnp.ndarray, p_im: jnp.ndarray, n: int,
                       precision=jax.lax.Precision.HIGHEST) -> jnp.ndarray:
     """:func:`_irdft_4step` on separate packed planes ``[..., B]`` — what
     planes-outer fused-voice callers have in hand (indexing their plane
-    axis is free; relayouting to the interleaved ``[..., 2, B]`` interface
-    was a measured full-array transpose copy in the farm stream)."""
+    axis is free; re-laying out to the interleaved ``[..., 2, B]`` interface
+    would copy the whole array)."""
     b = n // 2
     nyq = p_im[..., :1]
     # lane-0 fixups (halve DC re, zero the Nyquist-carrying im) as masked
     # multiplies, NOT 1-lane concats — a 1-lane concat shifts every other
-    # lane, a full relayout copy on TPU (measured ~2% of the V=128 farm
-    # stream); these fuse into the twiddle elementwise stage instead
+    # element of the last axis; these fuse into the twiddle elementwise
+    # stage instead
     m0 = jnp.zeros((b,), jnp.float32).at[0].set(1.0)
     g_re = p_re * (1.0 - 0.5 * m0)
     g_im = p_im * (1.0 - m0)
@@ -307,10 +307,8 @@ def _irdft_4step_pair(p_re: jnp.ndarray, p_im: jnp.ndarray, n: int,
 # 4-step costs ~16*m*sqrt(m) flops/lane vs the direct's 8*m^2 (sqrt(m)/2
 # more), but materializes THREE serialized stage temps of the full
 # [..., m, L] array; below this m the direct path's single full-contraction
-# matmul (128+-wide MXU contraction dim) plus one in/out pass wins — the
-# flagship tail meta (m=128, L=8192) and the two-stage side passes live
-# here.  At HIGHEST precision's 6 passes the flop ratio flips the win
-# above ~256.
+# matmul plus one in/out pass is taken — the flagship tail meta (m=128,
+# L=8192) and the two-stage side passes live here.
 _DIRECT_META_MAX = 256
 
 
@@ -347,19 +345,18 @@ def _cdft4_axis2(re: jnp.ndarray, im: jnp.ndarray, m: int, sign: float,
                  ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Complex DFT of length ``m`` (power of two) along axis -2 of
     ``[..., m, L]`` arrays — one direct basis matmul up to
-    ``_DIRECT_META_MAX``, Bailey 4-step above it (every stage an MXU
-    matmul over the time axis, lanes untouched).  Unnormalized;
+    ``_DIRECT_META_MAX``, Bailey 4-step above it (every stage a matmul
+    over the time axis, lanes untouched).  Unnormalized;
     ``sign=-1`` forward, ``+1`` inverse.
     ``scale`` folds a normalization (e.g. the inverse's 1/m) into the
     final-stage matrices — saves a whole-array pass per call.
-    ``factors``: override the (n1, n2) split (``benchmarks/exp_metafac``
-    A/Bs MXU efficiency across splits; default near-sqrt — measured best);
+    ``factors``: override the (n1, n2) split (default near-sqrt);
     forcing factors also forces the 4-step path.
     ``out_rows``: ``(start, count)`` — produce ONLY output rows
     ``[start, start + count)``.  Output row ``k1*n2 + k2`` lives in final-
     stage column ``k1``, so a row range needs only ``ceil``-covering k1
     columns: the final matmuls, their twiddled operand's last write, and
-    the swap-relayout all shrink proportionally (the overlap-save callers
+    the swap re-layout all shrink proportionally (the overlap-save callers
     keep ~half the rows — see ``causal_conv_time``)."""
     if factors is None and m <= _DIRECT_META_MAX:
         return _cdft_direct_axis2(re, im, m, sign, precision, scale, out_rows)
@@ -446,8 +443,8 @@ def causal_conv_time(ext: jnp.ndarray, kern: jnp.ndarray, t_out: int,
                      ) -> jnp.ndarray:
     """``out[t] = sum_i kern[i] (*) ext[N-1+t-i]`` — the frequency-delay-line
     MAC over a whole stream, computed by a SECOND DFT along the block axis
-    (overlap-save at the meta level).  Grouped-conv HLOs lower to ~100
-    GFLOPS on this target; this formulation is all MXU matmuls.
+    (overlap-save at the meta level) — all matmuls instead of a grouped
+    convolution.
 
     ``ext``: [..., Lt, 2, B] packed spectra (block history ++ new blocks);
     ``kern``: [..., N, 2, B] packed IR partition spectra.  Per audio lane,
@@ -517,7 +514,7 @@ def causal_conv_time(ext: jnp.ndarray, kern: jnp.ndarray, t_out: int,
     # output-row window [r0, r0 + t_out) folds into its final-stage
     # matrix columns (out_rows) — overlap-save discards ~half the rows,
     # so computing/materializing only the kept k1 blocks saves ~40% of
-    # each inverse's final stage + relayout
+    # each inverse's final stage + re-layout
     r0 = n - 1 if row0 is None else row0
     z_re = ehat_re * khat_re - ehat_im * khat_im
     z_im = ehat_re * khat_im + ehat_im * khat_re
@@ -536,9 +533,8 @@ def causal_conv_time(ext: jnp.ndarray, kern: jnp.ndarray, t_out: int,
     # main_re: rr - ii (lanes >= 1: final re); main_im: ri + ir;
     # conj_re: rr + ii (lane 0 only)
 
-    # lane-0 merge as a masked select, NOT a lane-axis concatenate — a
-    # 1-lane concat shifts every other lane (a full relayout on TPU,
-    # measured as slice+copy fusions in the farm's compiled stream)
+    # lane-0 merge as a masked select, NOT a last-axis concatenate — a
+    # 1-lane concat shifts every other element into a copy
     rr0 = (main_re[..., :1] + conj_re) * 0.5
     ii0 = (conj_re - main_re[..., :1]) * 0.5
     m0 = jnp.zeros((b,), jnp.float32).at[0].set(1.0)
@@ -555,7 +551,7 @@ def causal_conv_multi(ext, kerns: list, windows: list,
     inverse — the latency-bound short-call form (a 2-period single-voice
     call is a serialized chain of small matmuls; every separate conv pays
     a full forward + two inverse meta-DFT chains, while stacking along
-    lanes makes the extra kernels nearly free on the MXU).
+    lanes widens one matmul instead).
 
     The lane-0 (DC & Nyquist) conjugate corrections — a separate 1-lane
     inverse DFT chain per conv in :func:`causal_conv_time` — ride the SAME
@@ -658,10 +654,10 @@ def rdft_block(x: jnp.ndarray, fft_size: int,
 
     Equivalent to ``copy_and_pad`` + ``Fft::forward``
     (``src/fft_convolver.rs:36-39,56-60``).  Last axis is the transform;
-    leading axes batch (and batch straight onto the MXU).  ``precision``
-    defaults to the parity-exact HIGHEST; throughput paths (the reverb
-    farm) may pass HIGH (bf16x3 passes, ~f32 quality at half the MXU
-    cost) — never change the default, the 1e-6 parity tests depend on it.
+    leading axes batch into one matmul.  ``precision`` defaults to the
+    parity-exact HIGHEST; throughput paths (the reverb farm) may opt into
+    a lower tier — never change the default, the 1e-6 parity tests
+    depend on it.
 
     The zero pad is FOLDED into the transform instead of materialized:
     padded rows contribute nothing, so the basis (direct) / stage-1
@@ -700,7 +696,7 @@ def irdft_pair(p_re: jnp.ndarray, p_im: jnp.ndarray, fft_size: int,
     (``[..., B]`` each, lanes last).  Planes-outer fused-voice callers
     (the farm tail) index their plane axis instead of transposing to the
     interleaved ``[..., 2, B]`` interface — that transpose was a measured
-    full-array relayout copy per stream call (farm2.py cost mining)."""
+    full-array re-layout copy per stream call (farm2.py cost mining)."""
     if fft_size <= _DIRECT_MAX:
         return _irdft_direct(jnp.stack([p_re, p_im], axis=-2), fft_size,
                              precision)
@@ -709,7 +705,7 @@ def irdft_pair(p_re: jnp.ndarray, p_im: jnp.ndarray, fft_size: int,
 
 def ir_to_spectra(ir_padded: jnp.ndarray, block_size: int, seg_count: int) -> jnp.ndarray:
     """Partition an IR into ``seg_count`` blocks and transform each, zero-
-    padded to ``2*block_size`` — one batched MXU matmul replacing the
+    padded to ``2*block_size`` — one batched matmul replacing the
     reference's per-segment loop (``src/fft_convolver.rs:131-142``).
     Returns packed spectra [seg_count, 2, block_size]."""
     segs = jnp.reshape(jnp.asarray(ir_padded, jnp.float32), (seg_count, block_size))

@@ -1,19 +1,15 @@
 """Plane-packed bf16 complex storage: one uint32 word per spectral bin.
 
-The farm's bf16 tail option halves HBM traffic of the tail MAC (pure
-bandwidth, ``src/fft_convolver.rs:62-74`` batched over voices), but
-storing re/im as separate bfloat16 planes makes every load pay a
-(16,128)->(8,128) sublane re-tiling when cast to f32 — measured at ~2x
-the kernel's DMA floor (the cast cost scales with the data).
-
-Packing the two bf16 halves of one complex bin into a single 32-bit
-word sidesteps the re-tiling entirely:
+The farm's bf16 tail option (``ReverbFarm(tail_dtype=jnp.bfloat16)``)
+halves the device-memory traffic of the tail MAC (pure bandwidth,
+``src/fft_convolver.rs:62-74`` batched over voices).  Its storage packs
+the two bf16 halves of one complex bin into a single 32-bit word:
 
     word = (bits(re_bf16) << 16) | bits(im_bf16)
 
-* storage is (8,128)-tiled 32-bit — same sublane alignment rules, same
-  DMA granularity, and same ``pltpu.roll`` support as the f32 path;
-* unpacking is two LANE-LOCAL integer ops: ``word & 0xFFFF0000``
+* storage stays 32-bit wide, so the packed arrays keep the f32 path's
+  shapes minus the plane axis;
+* unpacking is two elementwise integer ops: ``word & 0xFFFF0000``
   reinterpreted as f32 IS the exact f32 value of ``re`` (bf16 -> f32 is
   "append 16 zero bits"), and ``word << 16`` likewise gives ``im``;
 * numerics are bit-identical to separate-plane bf16 storage (same
@@ -47,7 +43,7 @@ def pack_c32_planes(a: jnp.ndarray) -> jnp.ndarray:
 
 
 def unpack_c32(w: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Exact f32 (re, im) from packed words — two lane-local int ops and
+    """Exact f32 (re, im) from packed words — two elementwise int ops and
     free bitcasts per operand (bf16 -> f32 is zero-extension)."""
     re = jax.lax.bitcast_convert_type(w & jnp.uint32(0xFFFF0000),
                                       jnp.float32)

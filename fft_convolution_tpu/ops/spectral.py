@@ -4,11 +4,8 @@ The hot op of the framework — counterpart of ``complex_multiply_accumulate``
 looped over partitions (``src/fft_convolver.rs:62-74,244-261``).  The
 reference walks the ring partition-by-partition on the CPU; here the entire
 reduction is one masked gather + packed product + sum that XLA fuses into a
-single pass over the ``[seg_count, 2, B]`` spectra.
-
-The Pallas fused block-step kernel (``pallas_engine.py``) serves the
-single-block latency path with explicit VMEM residency; this jnp version is
-the semantic reference used by the sequential engine cores.
+single pass over the ``[seg_count, 2, B]`` spectra.  It is the semantic
+reference used by the sequential engine cores.
 """
 
 from __future__ import annotations

@@ -1,15 +1,15 @@
-"""Reverb farm: batched multi-channel / multi-IR convolution, single chip
+"""Reverb farm: batched multi-channel / multi-IR convolution, single device
 to full mesh.
 
 The reference is strictly single-voice, single-thread (SURVEY.md §2:
-parallelism ABSENT).  The TPU scale story is pure data parallelism over
+parallelism ABSENT).  The scale story is pure data parallelism over
 voices (channel x IR pairs):
 
-* on one chip, ``vmap`` stacks voice states along a leading axis and the
-  whole farm advances in one fused program (MXU-batched DFTs, one big MAC);
-* across chips, ``shard_map`` over a 1-D ``('dp',)`` mesh shards the voice
-  axis over ICI; the steady-state audio path has **zero cross-chip
-  collectives** — each chip owns its voices end to end.
+* on one device, ``vmap`` stacks voice states along a leading axis and the
+  whole farm advances in one fused program (batched DFTs, one big MAC);
+* across devices, a 1-D ``('dp',)`` mesh shards the voice axis; the
+  steady-state audio path has **zero cross-device collectives** — each
+  device owns its voices end to end.
 
 States stack because every voice shares one static ``UniformConfig``
 (same block size / max IR length — a "farm profile").
@@ -25,6 +25,11 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..models import uniform
+
+
+# largest uniform farm init accepts: past this footprint the two-stage
+# ReverbFarm, ~3x smaller per voice, is the engine for long-IR farms
+UNIFORM_FARM_MAX_BYTES = 15e9
 
 
 def farm_bytes_per_voice(block_size: int, max_response_length: int) -> int:
@@ -52,15 +57,16 @@ def farm_init(
 
     Memory ceiling: ~:func:`farm_bytes_per_voice` per voice (~45L —
     every segment is block-sized, unlike the two-stage farm2's ~16L).
-    Farms whose estimated footprint exceeds a 16 GB chip raise eagerly
-    with a pointer to :class:`api_farm.ReverbFarm` rather than OOMing
-    mid-init."""
+    Farms whose estimated footprint exceeds :data:`UNIFORM_FARM_MAX_BYTES`
+    raise eagerly with a pointer to :class:`api_farm.ReverbFarm` rather
+    than OOMing mid-init."""
     irs = jnp.asarray(irs, jnp.float32)
     est = irs.shape[0] * farm_bytes_per_voice(block_size, max_response_length)
-    if est > 15e9:
+    if est > UNIFORM_FARM_MAX_BYTES:
         raise ValueError(
             f"uniform farm of {irs.shape[0]} voices x {max_response_length} "
-            f"samples needs ~{est/1e9:.1f} GB (> one 16 GB chip). Long-IR "
+            f"samples needs ~{est/1e9:.1f} GB (> the uniform farm's "
+            f"{UNIFORM_FARM_MAX_BYTES/1e9:.0f} GB limit). Long-IR "
             "farms should use the two-stage ReverbFarm (parallel/farm2), "
             "whose per-voice memory is ~3x smaller, or shard this farm "
             "over a mesh (shard_farm)."
@@ -108,7 +114,7 @@ def lockstep_vmap_stream(stream_fn, state, vx):
     Farm voices advance in lockstep (same block count every call), so these
     scalars are identical across voices; telling vmap so turns every
     ring dynamic-slice/roll into one shared-index operation instead of a
-    per-voice gather (~10x on TPU).  1-D leaves are the former scalars.
+    per-voice gather.  1-D leaves are the former scalars.
     """
     axes = jax.tree.map(lambda leaf: None if leaf.ndim == 1 else 0, state)
     shared = jax.tree.map(
@@ -175,7 +181,7 @@ def farm_stream(cfg: uniform.UniformConfig, state: uniform.UniformState,
 
 
 # ---------------------------------------------------------------------------
-# multi-chip: shard the voice axis over a ('dp',) mesh
+# multi-device: shard the voice axis over a ('dp',) mesh
 # ---------------------------------------------------------------------------
 
 def make_farm_mesh(devices=None) -> Mesh:
@@ -193,8 +199,8 @@ def shard_farm(mesh: Mesh, state: uniform.UniformState) -> uniform.UniformState:
 
 def sharded_farm_stream(cfg: uniform.UniformConfig, mesh: Mesh):
     """Build a jitted sharded stream fn: blocks [T, V, B] with V sharded over
-    'dp'.  No collectives in the audio path — pure data parallel over ICI-
-    attached chips; XLA partitions the vmapped program per shard."""
+    'dp'.  No collectives in the audio path — pure data parallel over
+    devices; XLA partitions the vmapped program per shard."""
     v_sharded = NamedSharding(mesh, P(None, "dp"))
 
     @functools.partial(

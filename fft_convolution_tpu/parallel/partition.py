@@ -10,7 +10,7 @@ over an ``('sp',)`` mesh axis with ``shard_map``:
   it per block, and it never changes between updates);
 * each chip computes its local masked spectral MAC, and one ``psum`` of a
   single ``[2, B]`` spectrum (~1 KB at B=128) merges the partial sums over
-  ICI — the only cross-chip traffic in the steady-state audio path;
+  NVLink (NCCL) — the only cross-device traffic in the steady-state audio path;
 * the fresh input spectrum is computed replicated, so partition 0's product
   (``segments[current] * ir[0]``) needs no gather at all.
 
@@ -23,8 +23,8 @@ gathering remote segment rows.
 In the steady state (``active == seg_count``, a full ring) that window is
 CONTIGUOUS: each chip's slab ``j in [row0, row0 + local_rows)`` pairs IR rows
 ``(row0 - current) mod N .. + local_rows`` of a doubled IR table — one
-dynamic slice per block instead of a row gather (TPU gathers are the known
-pathological idiom; ``segments_ir`` is therefore stored pre-doubled,
+dynamic slice per block instead of a row gather (``segments_ir`` is
+therefore stored pre-doubled,
 ``[2 * seg_count, 2, B]``).  To make the full ring the steady state, ``init``
 declares ``active = seg_count`` — equivalent to a reference convolver whose
 ``max_response_length`` is padded to the next mesh multiple (trailing all-
@@ -195,7 +195,7 @@ def _build_raw_step(cfg: uniform.UniformConfig, mesh: Mesh):
             return pmul_sum(ir_rows, seg_local, mask)
 
         partial = jax.lax.cond(active == n, mac_sliced, mac_gather)
-        pre = jax.lax.psum(partial, "sp")  # ~1 KB over ICI
+        pre = jax.lax.psum(partial, "sp")  # ~1 KB over NVLink
 
         conv = pre + pmul(spec, ir2[0])
         fft_buffer = irdft_block(conv, 2 * b)

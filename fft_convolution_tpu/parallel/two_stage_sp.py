@@ -1,11 +1,11 @@
 """Sharded long-IR two-stage convolution: one voice, a multi-minute IR,
-the big tail spanning chips.
+the big tail spanning devices.
 
 The reference two-stage convolver (``src/fft_convolver.rs:323-526``) is a
 single-core design; its only scale story is the comment that the 2nd-Nth
 tail blocks "might be done in some background thread" (``:478``).  The
-TPU-native scale-out composes the two existing pieces (SURVEY.md §5's
-VMEM/HBM-budget scenario):
+scale-out composes the two existing pieces (SURVEY.md §5's memory-budget
+scenario):
 
 * **head + tail0** stay replicated on every chip — they are tiny (both run
   at ``head_block`` over at most ``tail_block`` taps) and give the low
@@ -15,7 +15,7 @@ VMEM/HBM-budget scenario):
   (SURVEY.md §5) — is the segment-axis-sharded FDL of
   :mod:`fft_convolution_tpu.parallel.partition`: each chip owns a slab of
   tail segments and one ``[2, B_tail]`` ``psum`` per tail *period* (not per
-  head block) merges the partial spectra over ICI.
+  head block) merges the partial spectra over NVLink (NCCL).
 
 The schedule is :func:`models.two_stage.process_stream_aligned`'s 3-stream
 delay decomposition, reused verbatim with the big-tail stream core swapped
@@ -24,7 +24,7 @@ for a ``lax.scan`` over the sharded FDL step:
     y = head(x) + delay_1_period(tail0(x)) + delay_2_periods(tail_sp(x))
 
 so the cross-chip traffic is one ~1 KB psum every ``period`` head blocks —
-the ICI cost *amortizes* with IR length while the per-chip memory shrinks
+the interconnect cost *amortizes* with IR length while the per-device memory shrinks
 as 1/n_chips.
 """
 

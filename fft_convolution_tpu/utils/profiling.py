@@ -13,11 +13,24 @@ example (``examples/compare_partitioned.rs:28,36-53``).  Here:
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 from dataclasses import dataclass, field
 from typing import List
 
 import numpy as np
+
+
+def gpu_cards() -> str:
+    """Name and power limit of every NVIDIA card as ``nvidia-smi`` reports
+    them (``; ``-joined) — a card set below its 700 W maximum runs slower
+    under load, so every measurement is reported beside this."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return "; ".join(line.strip() for line in out.splitlines() if line.strip())
 
 
 @contextlib.contextmanager

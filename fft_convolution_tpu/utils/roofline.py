@@ -1,18 +1,18 @@
-"""Roofline accounting: algorithmic FLOPs and HBM bytes for the engine paths.
+"""Roofline accounting: algorithmic FLOPs and device-memory bytes for the
+engine paths, and the published peaks they are divided by.
 
 The reference reports only wall time (``examples/compare_partitioned.rs:
-36-53``); "fast" there is relative to real time.  On a TPU the honest
-denominator is the silicon: bench.py uses these counts to report
+36-53``); "fast" there is relative to real time.  On an accelerator the
+honest denominator is the silicon: bench.py uses these counts to report
 
-* ``mfu``      — model FLOP utilization: algorithmic FLOPs / peak FLOPs
-* ``hbm_util`` — algorithmic bytes moved / peak HBM bandwidth
+* ``mfu``      — algorithmic FLOPs / peak f32 FLOP/s
+* ``hbm_util`` — algorithmic bytes moved / peak device-memory bandwidth
 
 Counts are *algorithmic* (what the math requires, assuming each
 materialized intermediate is written + read once): XLA fusion can move
-fewer bytes and HIGHEST-precision f32 matmuls internally run multiple MXU
-passes, so both figures are conservative utilization lower bounds for
-compute and upper-ish bounds for traffic.  Peak constants are the public
-v5e numbers; override per fleet.
+fewer bytes, so both figures are utilization estimates, not measurements
+of traffic.  Peaks come from :data:`PEAKS`, keyed by the ``device_kind``
+JAX reports; a device missing from the table is an error.
 """
 
 from __future__ import annotations
@@ -22,9 +22,32 @@ import dataclasses
 from ..models import two_stage, uniform
 from ..ops.fft import _DIRECT_MAX, _split_factors, next_power_of_two
 
-# public TPU v5e peaks (per chip): 197 TFLOP/s bf16 MXU, 819 GB/s HBM
-PEAK_FLOPS = 197e12
-PEAK_HBM_BPS = 819e9
+
+@dataclasses.dataclass(frozen=True)
+class Peaks:
+    hbm_bps: float      # device-memory bandwidth, bytes/s
+    f32_flops: float    # float32 outside the tensor cores — the rate the
+                        # engines' Precision.HIGHEST f32 matmuls get
+    bf16_flops: float   # dense bf16 tensor-core rate
+
+
+# NVIDIA H100 SXM data sheet (dense rates, no sparsity, 700 W limit)
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": Peaks(hbm_bps=3.35e12, f32_flops=67e12,
+                                   bf16_flops=989e12),
+}
+
+
+def peaks_for(device_kind: str) -> Peaks:
+    """The published peaks of ``device_kind``; raises ``KeyError`` for a
+    device that is not in :data:`PEAKS` (no peak is assumed)."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published peaks for device_kind {device_kind!r}; known: "
+            f"{sorted(PEAKS)}"
+        ) from None
 
 
 @dataclasses.dataclass
@@ -178,12 +201,10 @@ def two_stage_stream_cost(cfg: two_stage.TwoStageConfig, t: int,
     return c
 
 
-def utilization(cost: Cost, wall_seconds: float,
-                peak_flops: float = PEAK_FLOPS,
-                peak_hbm: float = PEAK_HBM_BPS) -> dict:
+def utilization(cost: Cost, wall_seconds: float, peaks: Peaks) -> dict:
     return {
-        "mfu": cost.flops / wall_seconds / peak_flops,
-        "hbm_util": cost.bytes / wall_seconds / peak_hbm,
+        "mfu": cost.flops / wall_seconds / peaks.f32_flops,
+        "hbm_util": cost.bytes / wall_seconds / peaks.hbm_bps,
         "gflops": cost.flops / wall_seconds / 1e9,
         "gbps": cost.bytes / wall_seconds / 1e9,
     }

@@ -105,6 +105,41 @@ def test_reverb_farm_capacity_guard():
     ReverbFarm(irs, 64, 9000, hbm_budget_bytes=None)
 
 
+@pytest.mark.parametrize("stats, budget", [
+    ({"bytes_limit": 60_000_000_000, "bytes_in_use": 0}, 58e9),
+    ({"bytes_in_use": 0}, None),
+    (None, None),
+])
+def test_farm_auto_budget_follows_device_memory(stats, budget, monkeypatch):
+    """The "auto" capacity budget is the device's bytes_limit less the
+    stated headroom, and no budget where the device reports no memory
+    statistics (the CPU backend); farm2_init applies it."""
+    from fft_convolution_tpu.parallel import farm2
+
+    class Dev:
+        def __init__(self, s):
+            self.s = s
+
+        def memory_stats(self):
+            return self.s
+
+    assert farm2.device_budget_bytes(Dev(stats)) == budget
+    if budget is not None:
+        assert budget == stats["bytes_limit"] - farm2.BUDGET_HEADROOM_BYTES
+    # the auto guard reads the default device: a budget below one voice's
+    # footprint raises, no statistics constructs
+    per_voice = farm2.farm2_bytes_per_voice(64, 9000, t_blocks=8 * 16)
+    tiny = {"bytes_limit": farm2.BUDGET_HEADROOM_BYTES + per_voice // 2}
+    dev = Dev(stats if budget is None else tiny)
+    monkeypatch.setattr(farm2.jax, "devices", lambda: [dev])
+    irs = np.zeros((2, 9000), np.float32)
+    if budget is None:
+        farm2.farm2_init(irs, 64, 9000)
+    else:
+        with pytest.raises(ValueError, match="voices fit"):
+            farm2.farm2_init(irs, 64, 9000)
+
+
 def test_reverb_farm_per_call_ceiling():
     """T beyond the phased core's per-call bound is a clean ValueError
     (not an in-trace AssertionError), and exactly-at-ceiling still works."""
@@ -122,11 +157,11 @@ def test_reverb_farm_per_call_ceiling():
     assert isinstance(y, np.ndarray) and y.shape == x.shape
 
 
-def test_reverb_farm_mesh_pallas_shard_map():
-    """pallas+mesh runs the stream under shard_map (the kernel has no
-    GSPMD rule, so each device steps its local voice shard) and must match
-    the single-device jnp farm; a voice count that does not divide the
-    mesh must raise eagerly."""
+def test_reverb_farm_mesh_shard_map():
+    """A mesh farm runs the stream under shard_map (each device steps its
+    local voice shard with no collective) and must match the
+    single-device farm; a voice count that does not divide the mesh must
+    raise eagerly."""
     from fft_convolution_tpu.parallel import farm as farm_mod
 
     mesh = farm_mod.make_farm_mesh()
@@ -135,8 +170,8 @@ def test_reverb_farm_mesh_pallas_shard_map():
     irs = rng.standard_normal((v, 9000)).astype(np.float32) * 0.05
     with pytest.raises(ValueError, match="divide"):
         ReverbFarm(irs[: v - 1], 64, 9000, mesh=mesh)
-    farm = ReverbFarm(irs, 64, 9000, mesh=mesh, tail_mac="pallas_interpret")
-    ref = ReverbFarm(irs, 64, 9000, tail_mac="jnp")
+    farm = ReverbFarm(irs, 64, 9000, mesh=mesh)
+    ref = ReverbFarm(irs, 64, 9000)
     t = farm.period
     for _ in range(2):
         x = rng.standard_normal((t, v, 64)).astype(np.float32)
@@ -269,8 +304,8 @@ def test_reverb_farm_update_voices_subset_and_contracts():
         )
 
     # chunked slab path (K > update_voices_chunk splits into consecutive
-    # <=chunk calls — the production escape from the batched large-K
-    # compile-OOM, r05 exp_update v2): force chunk=2 so K=3 exercises it
+    # <=chunk calls, bounding the update's transients): force chunk=2 so
+    # K=3 exercises it
     # on the small farm, and pin equivalence against one batched call.
     d = farm.clone()
     e2 = farm.clone()
@@ -341,8 +376,8 @@ def test_reverb_farm_update_voice_on_mesh():
     v = mesh.devices.size
     rng = np.random.default_rng(51)
     irs = rng.standard_normal((v, 9000)).astype(np.float32) * 0.05
-    farm = ReverbFarm(irs, 64, 9000, mesh=mesh, tail_mac="jnp")
-    ref = ReverbFarm(irs, 64, 9000, tail_mac="jnp")
+    farm = ReverbFarm(irs, 64, 9000, mesh=mesh)
+    ref = ReverbFarm(irs, 64, 9000)
     t = 2 * farm.period
     x = rng.standard_normal((2 * t, v, 64)).astype(np.float32)
     new_ir = rng.standard_normal(6000).astype(np.float32) * 0.05
@@ -361,8 +396,7 @@ def test_reverb_farm_update_voices_packed_storage():
     rng = np.random.default_rng(49)
     v, b, ir_len = 4, 64, 9000
     irs = rng.standard_normal((v, ir_len)).astype(np.float32) * 0.05
-    farm = ReverbFarm(irs, b, ir_len, tail_dtype=jnp.bfloat16,
-                      tail_mac="jnp")
+    farm = ReverbFarm(irs, b, ir_len, tail_dtype=jnp.bfloat16)
     assert farm.state.tail.segments_ir.dtype == jnp.uint32
     p = farm.period
     t = 2 * p

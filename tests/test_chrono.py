@@ -2,8 +2,7 @@
 
 The chrono convention replaces the big tail's decrementing ring with a
 chronological history buffer for aligned stream calls, removing the
-per-call ext-build / flip / rebuild-roll glue (measured at 52-70 % of the
-single-voice tail call, benchmarks/results/r04/exp_tailglue.log).  These
+per-call ext-build / flip / rebuild-roll glue.  These
 tests pin it to the ring paths: same outputs, exact state reconstruction
 at the conversion boundary, compaction transparency, and wrapper routing
 (sequential interleaving, update/reset/snapshot/clone).

@@ -243,3 +243,69 @@ def test_zero_fade_length_clamps_to_instant_switch():
     assert cfg.fading_samples == 1
     st = crossfade.new_state(cfg)
     assert np.isfinite(float(st.step))
+
+
+@pytest.mark.parametrize("call", ["block", "half_blocks"])
+def test_hold_then_ramp_sample_exact(call):
+    """During the hold the output is engine A's sample for sample; the
+    block after starts the ramp; after the fade the output is engine B's
+    (silent here, so any leak of A shows) — the Crossfader state machine
+    (``src/crossfade_convolver.rs:242-278``) composed with both engines,
+    through the fused block-aligned program and the unfused ragged path."""
+    rng = np.random.default_rng(53)
+    b = 128
+    ir1 = rng.standard_normal(2 * b).astype(np.float32) * 0.1
+    ir2 = np.zeros(2 * b, np.float32)
+    x = rng.standard_normal(6 * b).astype(np.float32)
+
+    def process(cc, blk):
+        if call == "block":
+            return cc.process(blk)
+        return np.concatenate([cc.process(blk[: b // 2 + 3]),
+                               cc.process(blk[b // 2 + 3:])])
+
+    def make():
+        return CrossfadeConvolver(FFTConvolver(ir1, b, len(ir1)), len(ir1), b,
+                                  2 * b)
+
+    plain = make()
+    y_plain = [process(plain, x[t * b:(t + 1) * b]) for t in range(6)]
+    cc = make()
+    process(cc, x[:b])
+    cc.update(ir2)
+    # hold_samples == block_size: the next block is pure A
+    np.testing.assert_array_equal(process(cc, x[b:2 * b]), y_plain[1])
+    assert np.abs(process(cc, x[2 * b:3 * b]) - y_plain[2]).max() > 1e-4
+    for t in range(3, 6):
+        y = process(cc, x[t * b:(t + 1) * b])
+    assert not cc.is_crossfading()
+    np.testing.assert_allclose(y, np.zeros(b), atol=1e-6)
+
+
+def test_snapshot_restore_reset_extension_and_capacity():
+    """snapshot/restore repeats a block exactly, reset_extension returns to
+    a power-on state, a mid-fade update longer than the stored-response
+    capacity raises, and ``cfg`` is the engines' shared config."""
+    rng = np.random.default_rng(52)
+    b = 128
+    ir = rng.standard_normal(3 * b).astype(np.float32) * 0.1
+    inner = FFTConvolver(ir, b, len(ir))
+    cc = CrossfadeConvolver(inner, len(ir), b, b)
+    assert cc.cfg == inner.cfg
+    x = rng.standard_normal(6 * b).astype(np.float32)
+    cc.process(x[:b])
+    cc.update(rng.standard_normal(2 * b).astype(np.float32) * 0.1)
+    assert cc.is_crossfading()
+    with pytest.raises(ValueError):
+        cc.update(np.ones(len(ir) + 1, np.float32))
+    snap = cc.snapshot()
+    y1 = cc.process(x[b:2 * b])
+    cc.restore(snap)
+    np.testing.assert_array_equal(cc.process(x[b:2 * b]), y1)
+
+    cc.reset_extension()
+    assert not cc.is_crossfading() and not cc.response_pending
+    ya = [cc.process(x[t * b:(t + 1) * b]) for t in range(3)]
+    cc.reset_extension()
+    yb = [cc.process(x[t * b:(t + 1) * b]) for t in range(3)]
+    np.testing.assert_array_equal(np.concatenate(ya), np.concatenate(yb))

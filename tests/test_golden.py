@@ -31,12 +31,15 @@ def _workload():
 
 
 def test_golden_is_reproducible():
-    """The committed artifact matches its regeneration script bit-for-bit."""
+    """The committed artifact matches its regeneration script.  Within
+    rtol=1e-6, not bit for bit: a float64 sum rounded to float32 can move
+    by one float32 ulp (~6e-8 relative) across numpy builds, whose
+    ``np.convolve`` may sum in another order."""
     ir, x, y = _workload()
     fresh = np.convolve(
         x.astype(np.float64), ir.astype(np.float64)
     )[: len(x)].astype(np.float32)
-    np.testing.assert_array_equal(fresh, y)
+    np.testing.assert_allclose(fresh, y, rtol=1e-6, atol=0)
 
 
 def test_uniform_matches_recorded_golden():
@@ -59,19 +62,17 @@ def test_two_stage_matches_recorded_golden():
     assert err <= 1e-5, f"two-stage vs recorded golden: {err}"
 
 
-@pytest.mark.parametrize("which", ["pallas_uniform", "pallas_two_stage"])
-def test_pallas_serving_matches_recorded_golden(which):
-    """The fused serving kernels hold the same recorded-golden contract."""
-    from fft_convolution_tpu.serving import (
-        PallasFFTConvolver,
-        PallasTwoStageConvolver,
-    )
+@pytest.mark.parametrize("which", ["uniform", "two_stage"])
+def test_per_block_serving_matches_recorded_golden(which):
+    """The per-block serving call (one ``process`` per block, as a
+    real-time host drives the engines) holds the recorded-golden contract."""
+    from fft_convolution_tpu import FFTConvolver, TwoStageFFTConvolver
 
     ir, x, y = _workload()
-    if which == "pallas_uniform":
-        conv = PallasFFTConvolver(ir, BLOCK, len(ir))
+    if which == "uniform":
+        conv = FFTConvolver(ir, BLOCK, len(ir))
     else:
-        conv = PallasTwoStageConvolver(ir, BLOCK, len(ir))
+        conv = TwoStageFFTConvolver(ir, BLOCK, len(ir))
     got = np.concatenate([
         conv.process(x[i * BLOCK:(i + 1) * BLOCK]) for i in range(N_BLOCKS)
     ])

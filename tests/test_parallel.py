@@ -1,7 +1,7 @@
 """Scale-out tests on the 8-virtual-device CPU mesh.
 
 The reference has no parallelism (SURVEY.md §2); these tests lock in the
-TPU-native scale story: vmap farms match per-voice processing exactly, and
+scale-out story: vmap farms match per-voice processing exactly, and
 the shard_map paths (voice-sharded farm, segment-sharded FDL) match the
 single-device engine bit-for-bit.
 """
@@ -212,90 +212,11 @@ def test_farm2_sharded_matches_unsharded():
     np.testing.assert_allclose(np.asarray(y2), np.asarray(y_ref2), atol=1e-5)
 
 
-def test_farm2_pallas_tail_mac_matches_jnp():
-    """The full-step Pallas tail kernel (ops/pallas_farm_mac.py, interpret
-    mode here) must reproduce the jnp phased correlation core across calls
-    of VARYING length (q = 2, 1, 4, 3 tail periods per call — the phase
-    walks every residue; production always streams q = 2 but the kernel
-    is generic up to the table-head DMA rows)."""
-    from fft_convolution_tpu.parallel import farm2
-
-    rng = np.random.default_rng(27)
-    v, b = 4, 64
-    ir_len = 9000
-    irs = rng.standard_normal((v, ir_len)).astype(np.float32) * 0.05
-    cfg, state = farm2.farm2_init(irs, b, ir_len)
-    assert cfg.tail is not None
-    p = cfg.period
-
-    run_ref = jax.jit(functools.partial(farm2.farm2_stream, cfg))
-    run_pl = jax.jit(functools.partial(
-        farm2.farm2_stream, cfg, tail_mac="pallas_interpret"
-    ))
-    state_pl = jax.tree.map(jnp.copy, state)
-    for call, periods in enumerate([2, 1, 4, 3]):
-        x = rng.standard_normal((periods * p, v, b)).astype(np.float32)
-        state, y_ref = run_ref(state, jnp.asarray(x))
-        state_pl, y_pl = run_pl(state_pl, jnp.asarray(x))
-        np.testing.assert_allclose(
-            np.asarray(y_pl), np.asarray(y_ref), atol=1e-5,
-            err_msg=f"call {call} ({periods} periods)",
-        )
-        # kernel and jnp accumulate in different orders; pre values are
-        # O(sum of spectra) so compare at f32-roundoff relative tolerance
-        np.testing.assert_allclose(
-            np.asarray(state_pl.tail.pre_multiplied),
-            np.asarray(state.tail.pre_multiplied), rtol=1e-4, atol=1e-4,
-        )
-
-
-def test_phased_step_variants_agree():
-    """The VPU-lean v2 phased-step kernel (mask factoring + dynamic
-    correction-row reads) must match v1 exactly-as-f32 for every phase
-    residue class and both storages.  v1 is the hardware-validated
-    anchor (bench.py farm gates + exp_mac --parity on TPU); this pins
-    the algebraic equivalence in CI."""
-    from fft_convolution_tpu.ops.packing import pack_c32_planes
-    from fft_convolution_tpu.ops.pallas_farm_mac import phased_step
-
-    rng = np.random.default_rng(29)
-    v, n, tb, t_blocks = 4, 16, 128, 2
-    vb = v * tb
-    rows = 2 * n + 16
-    u_f = jnp.asarray(rng.standard_normal((2, n, vb)).astype(np.float32) * 0.1)
-    ext2_f = jnp.asarray(
-        rng.standard_normal((2, rows, vb)).astype(np.float32) * 0.1
-    )
-    specs = jnp.asarray(
-        rng.standard_normal((t_blocks, 2, vb)).astype(np.float32) * 0.1
-    )
-
-    for packed in (False, True):
-        u = pack_c32_planes(u_f) if packed else u_f
-        ext2 = pack_c32_planes(ext2_f) if packed else ext2_f
-        for q in (0, 1, 7, 8, 13, n - 1):
-            outs = {}
-            for var in ("v1", "v2"):
-                convs, pre = jax.jit(
-                    functools.partial(
-                        phased_step, b_voice=tb, interpret=True, variant=var
-                    )
-                )(u, ext2, specs, jnp.asarray(q, jnp.int32))
-                outs[var] = (np.asarray(convs), np.asarray(pre))
-            scale = max(np.abs(outs["v1"][0]).max(),
-                        np.abs(outs["v1"][1]).max())
-            for a, b in zip(outs["v1"], outs["v2"]):
-                np.testing.assert_allclose(
-                    b, a, atol=2e-6 * scale,
-                    err_msg=f"packed={packed} q={q}",
-                )
-
-
 def test_farm2_bf16_tail_close_to_f32():
     """Opt-in bf16 tail storage (table + ring): outputs must track the f32
-    farm within bf16's ~3 significant digits, through both the jnp core
-    and the Pallas MAC (interpret).  The head/tail0 stages stay exact, so
-    overall error is bounded by the tail contribution's precision."""
+    farm within bf16's ~3 significant digits.  The head/tail0 stages stay
+    exact, so overall error is bounded by the tail contribution's
+    precision."""
     from fft_convolution_tpu.parallel import farm2
 
     rng = np.random.default_rng(28)
@@ -314,26 +235,16 @@ def test_farm2_bf16_tail_close_to_f32():
 
     run_f = jax.jit(functools.partial(farm2.farm2_stream, cfg_f))
     run_b = jax.jit(functools.partial(farm2.farm2_stream, cfg_b))
-    run_bp = jax.jit(functools.partial(
-        farm2.farm2_stream, cfg_b, tail_mac="pallas_interpret"
-    ))
-    state_bp = jax.tree.map(jnp.copy, state_b)
 
     state_f, y_f1 = run_f(state_f, jnp.asarray(x[:t]))
     state_b, y_b1 = run_b(state_b, jnp.asarray(x[:t]))
-    state_bp, y_p1 = run_bp(state_bp, jnp.asarray(x[:t]))
     _, y_f2 = run_f(state_f, jnp.asarray(x[t:]))
     _, y_b2 = run_b(state_b, jnp.asarray(x[t:]))
-    _, y_p2 = run_bp(state_bp, jnp.asarray(x[t:]))
 
     y_f = np.concatenate([np.asarray(y_f1), np.asarray(y_f2)])
     y_b = np.concatenate([np.asarray(y_b1), np.asarray(y_b2)])
-    y_p = np.concatenate([np.asarray(y_p1), np.asarray(y_p2)])
     scale = np.max(np.abs(y_f))
     assert np.max(np.abs(y_b - y_f)) < 2e-2 * scale
-    assert np.max(np.abs(y_p - y_f)) < 2e-2 * scale
-    # jnp core and Pallas MAC read the same bf16 state: near-identical
-    np.testing.assert_allclose(y_p, y_b, atol=1e-5)
 
 
 def test_farm2_bf16_tail_dft_precision():
@@ -730,12 +641,12 @@ def test_farm2_bf16_update_packed_table():
     assert np.max(np.abs(np.asarray(y_b) - np.asarray(y_f))) < 2e-2 * scale
 
 
-def test_farm2_stream_sharded_packed_pallas():
+def test_farm2_stream_sharded_packed():
     """The shard_map stream (farm2_stream_sharded) with PACKED bf16 tail
-    storage and the Pallas MAC (interpret): the rank-2 uint32 table's
-    fused V*B axis shards voice-chunked (farm2_pspecs' P(None, 'dp')),
-    each device's kernel stepping its local shard — must track the
-    unsharded jnp bf16 farm exactly (same state, same arithmetic)."""
+    storage: the rank-2 uint32 table's fused V*B axis shards voice-chunked
+    (farm2_pspecs' P(None, 'dp')), each device stepping its local shard —
+    must track the unsharded bf16 farm exactly (same state, same
+    arithmetic)."""
     from fft_convolution_tpu.parallel import farm2
 
     rng = np.random.default_rng(44)
@@ -754,7 +665,7 @@ def test_farm2_stream_sharded_packed_pallas():
 
     mesh = farm.make_farm_mesh()
     run_sm = jax.jit(functools.partial(
-        farm2.farm2_stream_sharded, mesh, cfg, tail_mac="pallas_interpret"
+        farm2.farm2_stream_sharded, mesh, cfg
     ))
     sstate = farm2.farm2_shard(mesh, state)
     sstate, y1 = run_sm(sstate, jnp.asarray(x[:t]))

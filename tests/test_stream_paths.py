@@ -465,8 +465,6 @@ def test_aligned_assume_clean_small_bit_exact():
     the runtime-guarded program on a clean state, in both the ring-khat and
     CHRONO forms.  The wrapper routes on its ``_small_full`` host shadow,
     so this is the equivalence that shadow asserts."""
-    from fft_convolution_tpu.utils.layouts import pin_m_minor
-
     rng = np.random.default_rng(31)
     ir = (rng.standard_normal(12000) * 0.01).astype(np.float32)
     cfg, state = two_stage.init(ir, 64, len(ir))
@@ -477,8 +475,8 @@ def test_aligned_assume_clean_small_bit_exact():
         for a, b in zip(jax.tree.leaves(tree_a), jax.tree.leaves(tree_b)):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
-    kh = pin_m_minor(jax.jit(functools.partial(two_stage.stream_khats, cfg),
-                             static_argnums=(1, 2))(state, t, None))
+    kh = jax.jit(functools.partial(two_stage.stream_khats, cfg),
+                 static_argnums=(1, 2))(state, t, None)
     ref = jax.jit(functools.partial(two_stage.process_stream_aligned, cfg))(
         state, x, khats=kh)
     spec = jax.jit(functools.partial(two_stage.process_stream_aligned, cfg,
@@ -491,8 +489,8 @@ def test_aligned_assume_clean_small_bit_exact():
     q = t // cfg.period
     m = uniform.next_power_of_two(n_t - 1 + q)
     h_cap = uniform.next_power_of_two(m + 4 * q)
-    kh2 = pin_m_minor(jax.jit(functools.partial(two_stage.stream_khats, cfg),
-                              static_argnums=(1, 2))(state, t, True))
+    kh2 = jax.jit(functools.partial(two_stage.stream_khats, cfg),
+                  static_argnums=(1, 2))(state, t, True)
     st_c, chrono = jax.jit(functools.partial(
         two_stage.tail_to_chrono, cfg, h_cap=h_cap))(state)
     ref_c = jax.jit(functools.partial(two_stage.process_stream_aligned, cfg))(

@@ -261,6 +261,46 @@ def test_roofline_accounting():
     c = roofline.two_stage_stream_cost(cfg, 2048)
     assert 1e9 < c.flops < 1e11
     assert 1e7 < c.bytes < 1e10
-    u = roofline.utilization(c, 1e-3)
+    u = roofline.utilization(c, 1e-3, roofline.peaks_for("NVIDIA H100 80GB HBM3"))
     assert set(u) == {"mfu", "hbm_util", "gflops", "gbps"}
     assert u["mfu"] > 0 and u["hbm_util"] > 0
+
+
+@pytest.mark.parametrize("kind", [
+    "NVIDIA H100 80GB HBM3", "NVIDIA H100 PCIe", "cpu",
+])
+def test_roofline_peak_table(kind):
+    """Peaks are keyed by the device_kind JAX reports: the H100 SXM data
+    sheet's figures, and an error (never a default) for any other device."""
+    from fft_convolution_tpu.utils import roofline
+
+    if kind == "NVIDIA H100 80GB HBM3":
+        p = roofline.peaks_for(kind)
+        assert (p.hbm_bps, p.f32_flops, p.bf16_flops) == (3.35e12, 67e12, 989e12)
+    else:
+        with pytest.raises(KeyError, match="no published peaks"):
+            roofline.peaks_for(kind)
+
+
+@pytest.mark.parametrize("engine, block, ir_len", [
+    ("uniform", 16, 77), ("uniform", 64, 300), ("two_stage", 16, 700),
+])
+def test_per_block_ring_wraparound_matches_float64(engine, block, ir_len):
+    """One block per ``process`` call for several trips around the
+    partition ring (and, two-stage, around the tail period) against a
+    float64 direct convolution."""
+    from fft_convolution_tpu import FFTConvolver, TwoStageFFTConvolver
+
+    rng = np.random.default_rng(block + ir_len)
+    ir = rng.standard_normal(ir_len).astype(np.float32) * 0.1
+    cls = FFTConvolver if engine == "uniform" else TwoStageFFTConvolver
+    conv = cls(ir, block, ir_len)
+    n_blocks = 4 * (-(-ir_len // block)) + 3
+    if engine == "two_stage":
+        assert conv.cfg.tail is not None
+        n_blocks = max(n_blocks, 3 * conv.cfg.tail_block // block + 3)
+    x = rng.standard_normal(n_blocks * block).astype(np.float32)
+    got = np.concatenate([conv.process(x[i * block:(i + 1) * block])
+                          for i in range(n_blocks)])
+    ref = np.convolve(x.astype(np.float64), ir.astype(np.float64))[: len(x)]
+    np.testing.assert_allclose(got, ref, atol=1e-5 * np.abs(ref).max())
